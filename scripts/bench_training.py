@@ -1,4 +1,4 @@
-"""Training-throughput benchmark at PRODUCTION scale on one TPU chip.
+"""Training-throughput benchmark at PRODUCTION scale on one device.
 
 The reference's core job: train 1,152 regions x m=6000 reservoirs on
 ~26 years of data ("40 minutes to a day" on a CPU cluster,
@@ -53,13 +53,8 @@ def synth_truth(seed, T, nlat, nlon, nz):
 
 
 def main():
-    import os
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-    except Exception:
-        pass
+    from speedy_ml_tpu.runtime.jax_setup import enable_compile_cache
+    enable_compile_cache()
     layout = RegionLayout(GEOM, n_regions=1152, overlap=1)
     truth = synth_truth(0, T, GEOM.nlat, GEOM.nlon, NZ)
     model = dict(atmo=truth["atmo"] + 0.1, logp=truth["logp"])

@@ -20,12 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-except Exception:
-    pass
+from speedy_ml_tpu.runtime.jax_setup import enable_compile_cache
+enable_compile_cache()
 
 from speedy_ml_tpu.core import Geometry
 from speedy_ml_tpu.core.spectral import SpectralTransform

@@ -27,8 +27,8 @@ Gram noise floor at our shorter slab series; see SKILL notes r3),
 CLIMATE_OUT (output dir), CLIMATE_BASE (reuse an existing pure-SPEEDY
 baseline from another run — it is independent of the hybrid),
 CLIMATE_DISPATCH (cycles per lax.scan dispatch in stage C; 32),
-CLIMATE_RCHUNK (training region chunk; 96 — use <=16 at m=6000 so the
-Gram block fits the 15.75 GB HBM), CLIMATE_MMAP (1 = memory-map the
+CLIMATE_RCHUNK (training region chunk; 96 — the Gram block is
+0.14 GB per region at m=6000, so size it to the device), CLIMATE_MMAP (1 = memory-map the
 twin cache instead of loading 15 GB into RSS; VERDICT r4 weak #6).
 
 Prediction dates run on the strict 365-day model calendar (cal365),
@@ -49,12 +49,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-except Exception:
-    pass
+from speedy_ml_tpu.runtime.jax_setup import enable_compile_cache
+enable_compile_cache()
 
 from speedy_ml_tpu.core import Geometry
 from speedy_ml_tpu.core.spectral import SpectralTransform

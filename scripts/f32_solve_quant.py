@@ -1,9 +1,9 @@
-"""Quantify the TPU f32 ridge solve against an f64 CPU oracle at the
+"""Quantify the f32 ridge solve against an f64 CPU oracle at the
 production Gram shape (VERDICT r3 #3).
 
 Builds REAL normal equations at A = S + n ~ 6,100 (m=6000) for a slice
 of interior regions from the cached twin training data (N=4400 6-h
-samples), then compares solve_wout's f32 TPU path (Jacobi-preconditioned
+samples), then compares solve_wout's f32 path (Jacobi-preconditioned
 LU, esn/train.py:194-260) against a full-f64 numpy solve of the same
 system, across beta_res in {0.05, 0.01, 0.001} (ours vs the reference's
 mod_reservoir.f90:89-101 value).
@@ -33,12 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-except Exception:
-    pass
+from speedy_ml_tpu.runtime.jax_setup import enable_compile_cache
+enable_compile_cache()
 
 from speedy_ml_tpu.core import Geometry
 from speedy_ml_tpu.esn.domain import RegionLayout
@@ -190,7 +186,8 @@ for beta in (0.05, 0.01, 0.001):
         readout_rel_rms=ro_rel,
         wout_absmax_f64=float(np.abs(w64).max()),
         wout_absmax_f32=float(np.abs(w32).max()),
-        solve_s_tpu_f32=round(t32, 1), solve_s_cpu_f64=round(t64, 1))
+        solve_s_f32=round(t32, 1), solve_s_cpu_f64=round(t64, 1),
+        device=str(jax.devices()[0]))
     mark(f"beta={beta}: fro {rel_fro:.3e} max {rel_max:.3e} "
          f"readout {ro_rel:.3e} |W|max f64 {np.abs(w64).max():.3e}")
 
@@ -200,7 +197,7 @@ out = dict(m=M, n=int(n), A=int(A), S=int(S), n_regions=RT,
            gram_diag_min=float(diag.min()), gram_diag_max=float(diag.max()),
            accumulate_wall_s=round(t_acc, 1),
            betas=results,
-           verdict=("f32 TPU solve is adequate when the squared ridge "
+           verdict=("f32 solve is adequate when the squared ridge "
                     "stays above the f32 Gram noise floor; see per-beta "
                     "numbers"))
 with open("/root/repo/F32_SOLVE_QUANT.json", "w") as f:

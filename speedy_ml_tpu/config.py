@@ -93,8 +93,9 @@ class RunConfig:
     persist_surface: bool = True
     # write v_p/v_ml readout-contribution streams (outvec_component_contribs)
     emit_components: bool = False
-    # reservoir graph family: "shift" (TPU-native ring ensemble) or
-    # "random" (the reference's makesparse permutation graphs)
+    # reservoir graph family: "shift" (ring ensemble: A x is J rolls) or
+    # "random" (the reference's makesparse permutation graphs: A x is J
+    # gathers, esn.reservoir.ell_spmv)
     topology: str = "shift"
 
     def save(self, path: str):
@@ -119,27 +120,8 @@ class RunConfig:
         import jax.numpy as jnp
         from speedy_ml_tpu.gcm import GCM
         geom = self.geometry()
-        if bd is None:
-            # real fort.2x climatology when it matches the grid, else the
-            # synthetic aquaplanet (non-T30 geometries have no data files)
-            from speedy_ml_tpu.core.spectral import SpectralTransform
-            from speedy_ml_tpu.physics.boundaries import (
-                load_boundary_data, synthetic_boundary_data)
-            sht = SpectralTransform(geom, dtype=jnp.dtype(self.dtype))
-            # fort.2x files exist only at the reference's 96x48 grid; a
-            # smaller grid that happens to divide the record size would
-            # silently read garbage, so gate on the geometry
-            if self.bc_path:
-                # explicitly configured path: load errors are the user's
-                # bug (a typo must not silently train on the aquaplanet)
-                bd = load_boundary_data(geom, sht, path=self.bc_path)
-            elif (geom.nlon, geom.nlat) == (96, 48):
-                try:
-                    bd = load_boundary_data(geom, sht, path=self.bc_path)
-                except (FileNotFoundError, OSError, ValueError):
-                    bd = synthetic_boundary_data(geom, sht)
-            else:
-                bd = synthetic_boundary_data(geom, sht)
+        # bd=None: GCM resolves bc_path (physics.boundaries.
+        # resolve_boundary_data — real fort.2x files or the aquaplanet)
         from speedy_ml_tpu.physics.land_sea import CplFlags
         flags = CplFlags(icland=self.icland, icsea=self.icsea,
                          icice=self.icice, isstan=self.isstan,

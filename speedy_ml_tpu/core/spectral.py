@@ -1,8 +1,8 @@
-"""Spherical-harmonic spectral transforms, TPU-first.
+"""Spherical-harmonic spectral transforms as batched array programs.
 
 Replaces the reference's per-latitude Legendre loops + vendored FFTPACK
 (/root/reference/src/spe_spectral.f90, spe_subfft_fftpack.f90) with
-batched einsums (MXU) over precomputed associated-Legendre tables and
+batched einsums over precomputed associated-Legendre tables and
 `jnp.fft.rfft/irfft` on the longitude axis.  Coefficient conventions,
 hemispheric symmetric/antisymmetric folding, and truncation masks are
 behaviorally identical to the reference so spectral states interoperate.
@@ -22,12 +22,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# All transform einsums run at full-f32 MXU precision: the TPU's default
-# matmul precision is bf16 passes, whose ~8-bit mantissa error in the
-# grid<->spectral round trip accumulates through the leapfrog and blows
-# the T30 integration up after ~20 days (f32 on CPU, where einsums are
-# true f32, is stable for the same run).  These arrays are tiny, so
-# HIGHEST costs nothing measurable against the physics.
+# All transform einsums run at full f32 precision: a reduced-precision
+# matmul (bf16 passes, or TF32 on tensor-core GPUs) puts an 8-10-bit
+# mantissa error into every grid<->spectral round trip, which accumulates
+# through the leapfrog and blows the T30 integration up after ~20 days
+# (true f32, as on CPU, is stable for the same run).  These arrays are
+# tiny, so HIGHEST costs nothing measurable against the physics.
 _PREC = jax.lax.Precision.HIGHEST
 
 from speedy_ml_tpu.core.geometry import Geometry
@@ -196,7 +196,7 @@ class SpectralTransform:
         # zonal-transform backend: "fft" (XLA FFT kernels) or "dft"
         # (explicit DFT matmuls).  Only mx of nlon/2+1 frequencies are
         # kept (triangular truncation), so the DFT matrices are small
-        # (nlon x mx); on the MXU they fuse with the Legendre einsums,
+        # (nlon x mx); they run as matmuls beside the Legendre einsums,
         # and they compose with ANY sharding — XLA's CPU fft thunk
         # rejects the relayouts GSPMD introduces around a sharded GCM.
         self.zonal = zonal

@@ -6,7 +6,7 @@ forecast states (generated once by running SPEEDY from ERA5 analyses)
 and pairs them with the ERA5 truth series during hybrid training, so
 training never has to re-run the GCM.
 
-This module defines the TPU framework's equivalent on-disk layout and a
+This module defines this framework's equivalent on-disk layout and a
 streaming reader whose `model_at(hours)` plugs directly into
 hybrid.chunked.ERASource(model_reader=...):
 

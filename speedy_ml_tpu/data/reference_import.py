@@ -27,7 +27,7 @@ Format facts (all verified against the reference source):
   region ("ragged"): sea regions I=576, n=5760, q=10; land I=560,
   n=6160, q=11 at production.
 
-TPU assembly: regions of a class are padded to (n_max, J_max); padded
+Batched assembly: regions of a class are padded to (n_max, J_max); padded
 reservoir rows have zero A values and zero Win values, so their state is
 identically zero (tanh(0)) and contributes nothing through the
 (zero-padded) Wout columns — the batched program is exactly equivalent

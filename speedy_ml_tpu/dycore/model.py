@@ -1,6 +1,6 @@
 """The primitive-equation spectral dynamical core (T30L8 by default).
 
-A TPU-first re-design of the reference's dynamics layer
+A batched-array re-design of the reference's dynamics layer
 (/root/reference/src/dyn_step.f90, dyn_grtend.f90, dyn_sptend.f90,
 dyn_implic.f90, dyn_geop.f90, ini_indyns.f90, ini_impint.f90):
 everything is a pure function of an immutable `SpectralState`; all
@@ -268,7 +268,7 @@ class DycoreModel:
 
         # ONE batched inverse transform for every needed field: stacking
         # [vor, div, t, tracers, ucos, vcos, d(ps)/dx, d(ps)/dy] keeps the
-        # small T30 matrices busy in a single set of MXU einsums instead
+        # small T30 matrices busy in a single set of einsums instead
         # of 8 separate kernel launches.
         ucosm, vcosm = sht.uvspec(vor_s, div_s)
         pxs, pys = sht.grad(ps_s)
@@ -419,8 +419,8 @@ class DycoreModel:
     def implicit_correction(self, imp: ImplicitCoeffs, divdt, tdt, psdt):
         """Semi-implicit gravity-wave correction (dyn_implic.f90)."""
         # ye[k] = sum_k1 xd[k,k1] tdt[k1] + tref1[k] psdt
-        # full-f32 MXU precision: the default bf16 passes destabilize the
-        # long integration (see core/spectral._PREC)
+        # full f32 precision: reduced-precision matmul passes
+        # destabilize the long integration (see core/spectral._PREC)
         import jax
         prec = jax.lax.Precision.HIGHEST
         ye = jnp.einsum("kl,lmn->kmn", imp.xd.astype(self.dtype), tdt,

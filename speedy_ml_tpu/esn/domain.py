@@ -6,7 +6,7 @@ each region's ESN input is its core patch plus an overlap halo, periodic
 in longitude and clipped at the poles (getoverlapindices,
 res_domain.f90:155-204).
 
-TPU design: regions are grouped into CLASSES by their input-patch height
+Batched design: regions are grouped into CLASSES by their input-patch height
 (pole rows are clipped, so polar regions have a smaller input vector and
 hence a different reservoir size).  Within a class everything is uniform
 and batches into single gathers/scatters; there is no rank-0 hub — the
@@ -224,9 +224,9 @@ class RegionLayout:
         field (..., lat, lon) -> (Rc, ..., yi, xi).  Exploits the regular
         block tiling: window element (a, b) across ALL regions of a class
         sits at one fixed global offset, so it is a single roll of the
-        field subsampled on the block lattice.  XLA/TPU lowers rolls and
-        strided slices to contiguous copies; the equivalent gather is a
-        scalar loop (~10x slower at T30 sizes)."""
+        field subsampled on the block lattice.  XLA lowers rolls and
+        strided slices to contiguous copies that fuse with their
+        consumers."""
         iy = cls.iy_core if core_only else cls.iy_in
         ix = cls.ix_core if core_only else cls.ix_in
         yi, xi = iy.shape[1], ix.shape[1]

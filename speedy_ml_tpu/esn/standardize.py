@@ -116,6 +116,20 @@ def floor_component_std(std_c: jnp.ndarray, nvar: int, nz: int,
     return jnp.maximum(std_c, floor_c[None, :])
 
 
+def component_sums(series: jnp.ndarray, onehot) -> tuple:
+    """Per-region first and second moments pooled per component:
+    series (T, R, I), onehot (I, C) -> (sum x, sum x^2), each (R, C).
+
+    Precision HIGHEST: the sums pool thousands of samples, and a float32
+    contraction at default precision may round its inputs to TF32
+    (10-bit mantissa) on tensor-core GPUs — a ~5e-4 relative error in
+    every standardization scalar."""
+    hi = jax.lax.Precision.HIGHEST
+    s1 = jnp.einsum("tri,ic->rc", series, onehot, precision=hi)
+    s2 = jnp.einsum("tri,ic->rc", series * series, onehot, precision=hi)
+    return s1, s2
+
+
 def compute_standardizer(series: jnp.ndarray, comp_map_in: np.ndarray,
                          comp_map_out: np.ndarray, n_comp: int,
                          nvar_nz=None, std_floor: float = 0.01
@@ -130,8 +144,7 @@ def compute_standardizer(series: jnp.ndarray, comp_map_in: np.ndarray,
     cm = jnp.asarray(comp_map_in)
     onehot = jax.nn.one_hot(cm, n_comp, dtype=series.dtype)      # (I, C)
     count = jnp.maximum(onehot.sum(axis=0) * T, 1.0)             # (C,)
-    s1 = jnp.einsum("tri,ic->rc", series, onehot)
-    s2 = jnp.einsum("tri,ic->rc", series * series, onehot)
+    s1, s2 = component_sums(series, onehot)
     mean_c = s1 / count
     var_c = s2 / count - mean_c**2
     # constant components (frozen polar SST, dry-region precip) must

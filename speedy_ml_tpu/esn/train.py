@@ -2,9 +2,10 @@
 
 Reference: mod_reservoir.f90 (reservoir_layer_chunking_*, chunking_matmul,
 fit_chunk_*, initialize_chunk_training).  The Fortran's per-sample spMV
-loop + per-batch DGEMMs become a `lax.scan` over time with per-batch MXU
-einsums; the 20-batch accumulation keeps the (n, T) state matrix from
-ever materializing whole, exactly as the reference does.
+loop + per-batch DGEMMs become a `lax.scan` over time with per-batch
+batched GEMMs (`gram_update`, full f32 precision); the 20-batch
+accumulation keeps the (n, T) state matrix from ever materializing
+whole, exactly as the reference does.
 
 All arrays carry a leading region axis R.  Time-major inputs:
   train_in:  (T, R, I)  standardized input series (with halos)
@@ -34,6 +35,20 @@ class NormalEq(NamedTuple):
     """Accumulated normal equations per region."""
     ss: jnp.ndarray    # (R, S+n, S+n)  aug . aug^T
     st: jnp.ndarray    # (R, O, S+n)    target . aug^T
+
+
+def gram_update(ss: jnp.ndarray, st: jnp.ndarray, aug: jnp.ndarray,
+                tgt: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Add one batch to the normal equations: ss += aug aug^T, st +=
+    tgt aug^T per region; aug (B, R, A), tgt (B, R, O).
+
+    Precision HIGHEST: these sums run over thousands of samples into a
+    near-singular ridge solve, and a float32 GEMM at default precision
+    may round its inputs to TF32 (10-bit mantissa) on tensor-core GPUs."""
+    hi = jax.lax.Precision.HIGHEST
+    ss = ss + jnp.einsum("brm,brk->rmk", aug, aug, precision=hi)
+    st = st + jnp.einsum("bro,brk->rok", tgt, aug, precision=hi)
+    return ss, st
 
 
 def find_closest_divisor(target: int, total: int) -> int:
@@ -151,8 +166,7 @@ def accumulate_batches(res: BatchedReservoir, hyper: ESNHyper,
             aug = states_sq
         tgt = jnp.take(target, tgt_idx, axis=0)
 
-        ss = ss + jnp.einsum("brm,brk->rmk", aug, aug)
-        st = st + jnp.einsum("bro,brk->rok", tgt, aug)
+        ss, st = gram_update(ss, st, aug, tgt)
 
         # advance into the next batch's first state
         x_next = esn_step(res, x_last, noisy_u(base + batch_size - 1),
@@ -208,8 +222,8 @@ def solve_wout(eq: NormalEq, hyper: ESNHyper, n_speedy: int,
         # night columns) make the f32 LU fit astronomically large Wout
         # (|Wout| ~ 3e4 with NaNs at T30 real data); the reference solves
         # in full f64 (real*8 + DGESV).  Promote JUST the solve — scoped
-        # x64 so the f32 model (and its complex64 spectral arrays, which
-        # the TPU backend cannot upcast) is untouched.
+        # x64 so the f32 model (and its complex64 spectral arrays) is
+        # untouched.
         with jax.enable_x64():
             return solve_wout(eq, hyper, n_speedy, solve_dtype)
     if hyper.using_prior:
@@ -222,9 +236,8 @@ def solve_wout(eq: NormalEq, hyper: ESNHyper, n_speedy: int,
 
     # solve (ss + ridge) . Wout^T = st^T — the reference's mldivide ->
     # DGESV (mod_linalg.f90:109-151).  Promotion happens PER REGION
-    # inside the sequential map: casting the whole (R, A, A) batch to
-    # f64 up front doubles the Gram footprint (+7.6 GB at the
-    # production 96-region chunk, A=3156) and crashed the 16 GB chip.
+    # inside the sequential map, so the f64 copy is one region's Gram,
+    # not the whole (R, A, A) batch (2x the chunk's f32 footprint).
     # The ridge is also added after the cast — at f32 a 1e-6 ridge
     # rounds away against O(1e3) Gram diagonals.
     def solve_one(ssr, str_):
@@ -242,21 +255,18 @@ def solve_wout(eq: NormalEq, hyper: ESNHyper, n_speedy: int,
         ssn = ssr / d[:, None] / d[None, :]
         b = (str_ / d[None, :]).T
         if promote:
-            # the TPU backend has NO f64 LuDecomposition ("Only F32 and
-            # C64 types are implemented") and Cholesky NaNs here — the
-            # f32-accumulated Gram carries ~eps32-relative noise that
-            # leaves the normalized matrix slightly INDEFINITE (min eig
-            # ~ -1e-7) when near-singular.  QR expands to dtype-generic
-            # HLO on TPU and, like pivoted LU, tolerates indefiniteness.
+            # QR, not Cholesky: the f32-accumulated Gram carries
+            # ~eps32-relative noise that leaves the normalized matrix
+            # slightly INDEFINITE (min eig ~ -1e-7) when near-singular,
+            # where Cholesky NaNs; QR, like pivoted LU, tolerates it.
             q, r = jnp.linalg.qr(ssn)
             z = jax.scipy.linalg.solve_triangular(r, q.T @ b, lower=False)
         else:
             z = jnp.linalg.solve(ssn, b)
         return ((z / d[:, None]).T).astype(out_dtype)
 
-    # sequential over regions (lax.map, not vmap): the TPU LU kernel's
-    # scoped VMEM scales with the batch and overflows at production
-    # A~6000 x 16 regions; the solve is a tiny fraction of training time
+    # sequential over regions (lax.map, not vmap): working memory stays
+    # one region's factorization (an f64 A=5892 QR holds ~0.8 GB)
     return jax.lax.map(lambda args: solve_one(*args), (eq.ss, eq.st))
 
 

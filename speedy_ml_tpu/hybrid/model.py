@@ -4,7 +4,7 @@ Reference: the per-timestep cycle of parallelmain.f90:206-272 +
 mpires.f90 sendrecievegrid/run_model (218-780, 1516-1628) + the
 iogrid(30)/(31) bridge (ppo_iogrid.f90:497-601).
 
-TPU re-design: there is no rank-0 hub.  The "global grid" is a sharded
+Re-design: there is no rank-0 hub.  The "global grid" is a sharded
 device array; reservoir outputs scatter into it, SPEEDY-as-a-jitted-
 function advances it 6 h, and the feedback/local-model vectors gather
 straight back out.  One `cycle()` is a single jitted program.
@@ -175,7 +175,7 @@ class HybridAtmosphere:
         """Switch the cycle to the hub-free sharded path: region outputs
         scatter into LON-SECTOR grid shards, halos move by ring ppermute,
         and feedback/local-model windows gather shard-locally (the
-        TPU-native transposition of sendrecievegrid, mpires.f90:218-780).
+        peer-to-peer transposition of sendrecievegrid, mpires.f90:218-780).
         Call BEFORE the first traced cycle; also lat-shards the GCM's
         grid-space physics (GCM.set_mesh) unless shard_gcm=False."""
         from speedy_ml_tpu.hybrid.sharded import ShardedCycleOps
@@ -313,11 +313,11 @@ class HybridAtmosphere:
     def cast_wout_bf16(self):
         """Store the readout weights in bfloat16 (in place on the packs).
 
-        Optional perf mode: the cycle's readout is HBM-bound on the Wout
-        read (3.8 GB f32 at m=6000 x 1,152 regions ~= 4.7 ms of the
-        ~14 ms cycle on a v5e); bf16 halves it.  Outputs keep an f32
-        accumulator (see esn.reservoir.readout); the ~0.4% relative
-        weight rounding sits far below the 0.2-sigma training noise."""
+        Optional perf mode: the cycle's readout is bound by the Wout read
+        (3.8 GB f32 at m=6000 x 1,152 regions); bf16 halves it.  Outputs
+        keep an f32 accumulator (see esn.reservoir.readout); the ~0.4%
+        relative weight rounding sits far below the 0.2-sigma training
+        noise."""
         self.packs = [p._replace(res=dataclasses.replace(
             p.res, wout=p.res.wout.astype(jnp.bfloat16)))
             for p in self.packs]

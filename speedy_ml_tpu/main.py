@@ -248,11 +248,14 @@ def plot(cfg: RunConfig) -> list:
 
 
 def main(argv=None):
+    from speedy_ml_tpu.runtime import jax_setup
+
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 2 or argv[0] not in ("train", "predict", "run",
                                          "plot"):
         print(__doc__)
         return 2
+    jax_setup.enable_compile_cache()
     mode, cfg_path = argv
     cfg = RunConfig.load(cfg_path)
     if mode == "plot":

@@ -2,13 +2,13 @@
 
 The reference materializes halos through the rank-0 hub: root assembles
 the full grid and re-tiles per-region windows (sendrecievegrid,
-mpires.f90:218-780).  On a single TPU slice the XLA-compiled gathers
-from a replicated grid are fine (round-1 design), but multi-host meshes
-must not all-gather the globe across DCN every cycle.  This module is
-the peer-to-peer path: the global (lat, lon) grid lives LAT-SHARDED
-across devices, and each cycle only the `overlap` edge rows move between
-lat-neighbor devices over ICI — a ring ppermute, O(overlap * nlon) bytes
-per device instead of O(nlat * nlon).
+mpires.f90:218-780).  On one device the XLA-compiled gathers from a
+replicated grid are fine (round-1 design), but a mesh should not
+all-gather the globe every cycle.  This module is the peer-to-peer path:
+the global (lat, lon) grid lives LAT-SHARDED across devices, and each
+cycle only the `overlap` edge rows move between lat-neighbor devices — a
+ring ppermute, O(overlap * nlon) bytes per device instead of
+O(nlat * nlon).
 
 Latitude bands map naturally onto a mesh axis because the region tiling
 is a regular block grid (res_domain.f90:258-280): device d owns rows

@@ -1,21 +1,23 @@
 """Device mesh and sharding for the hybrid model.
 
 The reference's parallelism is 1,152 MPI ranks, one region each, with a
-rank-0 hub for the global grid (SURVEY 2.3).  The TPU-native layout:
+rank-0 hub for the global grid (SURVEY 2.3).  The layout here is a 1-D
+mesh over the devices of one host (GPUs joined all to all by NVLink, so
+the mesh follows the algorithm alone):
 
 - axis "regions": the batched-reservoir leading axis R is sharded across
   devices (the data/expert-parallel axis — each region has its own
   weights, like hard-routed experts);
 - the global (lat, lon) grid and the GCM spectral state are replicated;
   scatters/gathers between sharded region vectors and the replicated
-  grid compile to XLA all-gathers over ICI — no rank-0 hub, no
-  point-to-point plumbing;
+  grid compile to XLA all-gathers — no rank-0 hub, no point-to-point
+  plumbing;
 - training normal equations (R, A, A) shard over the same axis, so each
   device holds only its regions' Gram matrices (the dominant memory).
 
-Multi-host: the same mesh spans hosts; only the region axis crosses DCN
-and only during the (rare) global assembly — which is the all-gather of
-core patches, a few MB.
+Across hosts the same mesh would span them; only the region axis moves
+data, and only during the global assembly — the all-gather of core
+patches, a few MB.
 """
 
 from __future__ import annotations

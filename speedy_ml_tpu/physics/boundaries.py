@@ -90,11 +90,15 @@ def load_boundary_data(geom, sht, grav: float = 9.81,
                        path: str | None = None) -> BoundaryData:
     """Load fort.20-26 boundary files and derive masks/filtered orography.
 
-    path defaults to $SPEEDY_ML_BC_PATH or the reference's bin/ directory.
+    path defaults to $SPEEDY_ML_BC_PATH; with neither, FileNotFoundError.
     """
     from speedy_ml_tpu.physics.surface import sflset
+    from speedy_ml_tpu.runtime.jax_setup import on_host
 
-    path = path or os.environ.get("SPEEDY_ML_BC_PATH", "/root/reference/bin")
+    path = path or os.environ.get("SPEEDY_ML_BC_PATH")
+    if not path:
+        raise FileNotFoundError(
+            "no boundary-data directory: pass path or set SPEEDY_ML_BC_PATH")
     path = Path(path)
     nlon, nlat = geom.nlon, geom.nlat
     rd = lambda unit, off: read_boundary_records(path / f"fort.{unit}", off,
@@ -102,10 +106,9 @@ def load_boundary_data(geom, sht, grav: float = 9.81,
 
     orog_m = rd(20, 0)
     phi0 = grav * orog_m
-    # spectral truncation of the surface geopotential (truncg at ntrun);
-    # host-side prep: pin to the CPU backend so model construction never
-    # touches the accelerator
-    with jax.default_device(jax.devices("cpu")[0]):
+    # spectral truncation of the surface geopotential (truncg at ntrun):
+    # a static table, computed on the host device and kept as numpy
+    with on_host():
         phis_spec = sht.grid_to_spec(jnp.asarray(phi0, dtype=sht.dtype))
         phis0 = np.asarray(sht.spec_to_grid(sht.trunct(phis_spec)),
                            dtype=np.float64)
@@ -181,6 +184,34 @@ def synthetic_boundary_data(geom, sht, grav: float = 9.81,
         soilw12=f(0.5 * np.ones((12, nlat, nlon))),
         sst12=f(sst12), sice12=f(np.zeros((12, nlat, nlon))),
         forog=f(sflset(zeros, grav)))
+
+
+SYNTHETIC = "synthetic aquaplanet"
+
+
+def resolve_boundary_data(geom, sht, grav: float = 9.81,
+                          path: str | None = None
+                          ) -> tuple[BoundaryData, str]:
+    """The single rule for which boundary data a model runs on.
+
+    - an explicit `path` is configuration: load the fort.2x files from
+      it, and let a missing or bad directory raise (a typo must not
+      silently train on the aquaplanet);
+    - $SPEEDY_ML_BC_PATH counts the same at the files' own 96x48 grid;
+      other grids have no data files (a grid that happens to divide the
+      record size would read garbage), so it is ignored there;
+    - otherwise use the synthetic aquaplanet and say so.
+    Returns (BoundaryData, source), source being the directory or
+    SYNTHETIC."""
+    if not path and (geom.nlon, geom.nlat) == (96, 48):
+        path = os.environ.get("SPEEDY_ML_BC_PATH")
+    if path:
+        return load_boundary_data(geom, sht, grav, path=path), str(path)
+    import warnings
+    warnings.warn(f"no boundary-data path configured (bc_path or "
+                  f"SPEEDY_ML_BC_PATH at 96x48): using the {SYNTHETIC}",
+                  stacklevel=2)
+    return synthetic_boundary_data(geom, sht, grav), SYNTHETIC
 
 
 def save_npz(bd: BoundaryData, path: str):

@@ -40,8 +40,8 @@ def _fband_lookup(fband_tab, ta: jnp.ndarray, jb: int) -> jnp.ndarray:
 
     The reference tabulates piecewise quadratics over integer T
     (radset, phy_radiat.f90:677-691); evaluating the quadratics at
-    round(T) reproduces the table EXACTLY without a gather (XLA/TPU
-    gathers lower to scalar loops - this is in the per-step hot path,
+    round(T) reproduces the table EXACTLY without a gather: the lookup
+    fuses into the surrounding elementwise physics (per-step hot path,
     ~70 lookups x 4608 points per radlw call)."""
     tc = jnp.clip(jnp.round(ta), 200.0, 320.0)   # constant outside [200,320]
     eps1 = 1.0 - pc.EPSLW

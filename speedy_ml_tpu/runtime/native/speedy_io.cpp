@@ -2,7 +2,7 @@
 //
 // The reference feeds its training loop through parallel NetCDF reads and
 // Fortran direct-access record files (mod_io.f90, ini_inbcon.f90).  This
-// library is the TPU-side equivalent of that native IO layer: it keeps
+// library is this framework's equivalent of that native IO layer: it keeps
 // file decoding, latitude flipping, and per-region patch gathers off the
 // Python interpreter (no GIL stalls while the accelerator is being fed),
 // with a std::thread pool for the gather fan-out.

@@ -6,7 +6,7 @@ and time-mean accumulation, MSL pressure at :60-70) + ppo_tmout.f90
 driven from agcm_main).  These are the files the reference's climatology
 verification (scripts/hybrid_climo.py) consumes.
 
-TPU re-design: one numpy-side accumulator fed from the prediction
+Design: one numpy-side accumulator fed from the prediction
 stream (PredictionWriter diag dicts) — the hybrid never runs the GCM's
 own post-processing, matching the reference hybrid runs where tminc is
 effectively disabled (SURVEY 2.2 row 28) and verification happens on

@@ -1,11 +1,9 @@
 """Promoted-precision ridge solve (solve_dtype) correctness.
 
-The f64 path must (a) match a numpy f64 oracle, (b) stay bounded on the
-near-singular Grams that degenerate at f32, and (c) avoid LU: the TPU
-backend implements no f64 LuDecomposition ("Only F32 and C64 types"),
-so the promotion solves by Cholesky on the SPD ridge Gram — this test
-pins the numerics; the TPU compile path is exercised by the production
-skill experiment."""
+The f64 path must (a) match a numpy f64 oracle and (b) stay bounded on
+the near-singular Grams that degenerate at f32; the promotion solves by
+QR, which tolerates the slight indefiniteness of an f32-accumulated
+Gram — this test pins the numerics."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -55,7 +55,8 @@ def test_physics_evaluates_at_filtered_level():
 def test_t30_long_integration_stays_physical():
     """90 simulated days at T30 with the real boundary climatology —
     crosses the 20-60-day horizon where the unfiltered-physics bug blew
-    up every run (f32 TPU day ~20-35, f64 CPU day ~58)."""
+    up every run (f32 reduced-precision matmuls around day 20-35, f64 CPU
+    around day 58)."""
     geom = Geometry()
     sht = SpectralTransform(geom, dtype=jnp.float32)
     try:
@@ -91,7 +92,7 @@ def test_t30_long_integration_stays_physical():
 def test_scan_unroll_is_bitwise_identical():
     """run_window(scan_unroll=k) is the same program unrolled: results
     must be bitwise equal to the unroll=1 window (the knob exists to cut
-    per-iteration launch overhead on TPU, not to change math).  Also
+    per-iteration loop overhead, not to change math).  Also
     pins the fallback: nsteps not divisible by the factor uses unroll=1."""
     geom = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
     sht = SpectralTransform(geom, dtype=jnp.float32)
